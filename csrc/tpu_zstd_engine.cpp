@@ -21,7 +21,7 @@
 // Exposed to Python via ctypes (tpu_zstd/utils/native.py) as the Manager's
 // fast CPU route, and to C callers directly (tz_engine_*).
 //
-// Build: part of libtpu_zstd_native.so (see utils/native.py).
+// Build: part of libtz_native.so (see utils/native.py).
 
 #include <cstdint>
 #include <cstring>

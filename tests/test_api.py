@@ -131,10 +131,10 @@ def test_hybrid_routing(corpus):
 
 
 def test_hybrid_decompress_routing(corpus):
-    """Host-bound decodes route to CPU libzstd (the measured winner — the
-    single-chip device decoder is executor-bound; round-3 review weak #1
-    flagged the old accel->TPU rule as parity-in-shape). FORCE modes and
-    the device-resident inference route still reach the TPU decoder."""
+    """Host-bound decodes route to CPU libzstd (a rule set on another
+    accelerator, not measured on the H100; round-3 review weak #1 flagged
+    the old accel->device rule as parity-in-shape). FORCE modes and the
+    device-resident inference route still reach the device decoder."""
     from dataclasses import replace
 
     from tpu_zstd.api.config import CompressionConfig
@@ -164,7 +164,7 @@ def test_hybrid_decompress_routing(corpus):
     assert eng_cpu.decompress(frame, result=res2) == data
     assert res2.backend == tpu_zstd.Backend.CPU_LIBZSTD
 
-    # batch route (multi-block frames take the general TPU decoder)
+    # batch route (multi-block frames take the general device decoder)
     outs = eng.decompress_batch([frame])
     assert outs == [data]
 

@@ -81,7 +81,7 @@ def test_libzstd_ignores_trailing_metadata(corpus, accel_frames):
     d = zstandard.ZstdDecompressor()
     for item, frame in zip(corpus, accel_frames):
         meta, end = parse_accel_tail(frame)
-        if len(item) > 64:  # tiny items may skip the TPU path's metadata
+        if len(item) > 64:  # tiny items may skip the device path's metadata
             assert meta is not None
         assert d.decompress(frame, max_output_size=len(item)) == item
 

@@ -4,13 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_zstd.ops.pallas_opt import (
-    BIG,
+from tpu_zstd.ops.optimal_parse import (
     LIT_BITS,
     MATCH_BASE,
     SCALE,
     _mlx,
-    default_cost_bank,
     opt_steps,
 )
 
@@ -60,32 +58,6 @@ def test_dp_matches_brute_force(seg, mm, cap):
         assert cost == want_cost, (s, cost, want_cost)
 
 
-def test_kernel_matches_scan_interpret():
-    from tpu_zstd.ops.pallas_opt import GB, LANES, _opt_impl, _opt_scan
-
-    rng = np.random.default_rng(5)
-    seg, S = 128, GB * LANES
-    ml = rng.integers(0, 33, (S, seg))
-    ml[rng.random((S, seg)) < 0.5] = 0
-    ofc = rng.integers(0, 21, (S, seg))
-    packed = jnp.asarray(ml | (ofc << 7), I32)
-    # mixed per-block literal prices exercise the lit_bits input
-    lit_bits = jnp.asarray(rng.integers(3 * SCALE, 9 * SCALE, S), I32)
-    bank_row = default_cost_bank(4, 32)
-    # per-row randomized OF-symbol costs exercise the bank input (rows of
-    # one 128-lane group share a bank, mirroring the one-block-per-sublane
-    # layout of the production path)
-    banks = np.tile(bank_row, (S, 1))
-    banks[:, :32] += np.repeat(
-        rng.integers(0, 3 * SCALE, (S // 128, 1)), 128, axis=0
-    )
-    want = np.asarray(_opt_scan(packed, lit_bits, jnp.asarray(banks), 4, 32))
-    got = np.asarray(
-        _opt_impl(packed.T, lit_bits, jnp.asarray(banks[::LANES]), 4, 32, True).T
-    )
-    np.testing.assert_array_equal(got, want)
-
-
 def test_dp_prefers_match_over_literals():
     seg = 64
     ml = np.zeros(seg, np.int64)
@@ -104,7 +76,7 @@ def test_level19_roundtrip_interop():
 
     rng = np.random.default_rng(3)
     base = bytes(rng.integers(0, 255, 3000, dtype=np.uint8))
-    data = base + b"hello tpu optimal parse " * 700 + base + bytes(200)
+    data = base + b"hello optimal parse " * 700 + base + bytes(200)
     cfg = CompressionConfig.from_level(19)
     frame = compress_items_tpu([data], cfg)[0]
     out = zstandard.ZstdDecompressor().decompress(frame, max_output_size=len(data) * 2)

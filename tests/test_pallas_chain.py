@@ -1,9 +1,9 @@
-"""Batched Pallas FSE state-chain kernel vs the XLA reference implementation.
+"""Chunk-parallel FSE state chains vs a serial numpy walk.
 
-state_chain3_pallas (ops/pallas_chain.py) must be bit-identical to
-fse_jax._state_chain3_cf on the valid region (steps 1..nseq-1 per block, plus
-the flush states) — the staged encode path swaps between them by backend.
-Counterpart of the reference's sequential chunk state pre-pass
+fse_jax._state_chain3_cf (chunked fixpoint passes) must be bit-identical to
+walking each stream's ANS encoder states one symbol at a time — on the valid
+region (steps 1..nseq-1 per block) and in the flush states. Counterpart of
+the reference's sequential chunk state pre-pass
 (reference src/cuda_zstd_fse_chunk_kernel.cuh:22-70).
 """
 
@@ -16,7 +16,28 @@ import pytest
 
 from tpu_zstd.constants import SEQ_RLE
 from tpu_zstd.ops.fse_jax import _state_chain3_cf, prepare_sequences_auto
-from tpu_zstd.ops.pallas_chain import state_chain3_pallas
+
+
+def _serial_chain(st, dnb, dfs, init, tl, rle, rsym, n):
+    """One block's three streams walked serially: (pre, fin, nb)."""
+    K, ms = rsym.shape
+    pre = np.zeros((K, ms), np.int64)
+    nbs = np.zeros((K, ms), np.int64)
+    fin = np.zeros(K, np.int64)
+    for k in range(K):
+        if rle[k]:
+            continue
+        ts = 1 << int(tl[k])
+        state = int(init[k, rsym[k, 0]])
+        for t in range(1, n):
+            sym = int(rsym[k, t])
+            value = ts + state
+            nb = (value + int(dnb[k, sym])) >> 16
+            idx = min((value >> nb) + int(dfs[k, sym]), st.shape[1] - 1)
+            pre[k, t], nbs[k, t] = state, nb
+            state = int(st[k, idx]) - ts
+        fin[k] = state
+    return pre, fin, nbs
 
 
 def _mk_prep(rng, msb, B):
@@ -34,7 +55,8 @@ def _mk_prep(rng, msb, B):
         nseqs.append(n)
     stacked = [jnp.asarray(np.stack([c[i] for c in cols])) for i in range(3)]
     nseq = jnp.asarray(nseqs, jnp.int32)
-    prep = jax.vmap(lambda a, b, c, n: prepare_sequences_auto(a, b, c, n, msb))(
+    # One jitted program per shape, not one eager dispatch per op.
+    prep = jax.jit(jax.vmap(lambda a, b, c, n: prepare_sequences_auto(a, b, c, n, msb)))(
         *stacked, nseq
     )
     return prep, nseq, nseqs
@@ -42,27 +64,27 @@ def _mk_prep(rng, msb, B):
 
 @pytest.mark.parametrize("msb,B", [(256, 4), (1024, 2), (16896, 1), (32768, 1)])
 def test_chain_matches_cf(msb, B):
-    """RS=1 (msb<=16384) and RS=2 (msb<=32768) layouts, interpret mode."""
+    """Bucket widths from the smallest to the 128 KB block's 32768."""
     rng = np.random.default_rng(msb)
     prep, nseq, nseqs = _mk_prep(rng, msb, B)
     rle3 = prep["mode3"] == SEQ_RLE
-    ref = jax.vmap(
+    ref = jax.jit(jax.vmap(
         lambda st, dnb, dfs, init, tl, rl, rs, n: _state_chain3_cf(
             st, dnb, dfs, init, tl, rl, rs, n, msb
         )
-    )(
+    ))(
         prep["st3"], prep["dnb3"], prep["dfs3"], prep["init3"], prep["tl3"],
         rle3, prep["rsym3"], nseq,
     )
-    interpret = jax.default_backend() != "tpu"
-    got = state_chain3_pallas(
-        prep["st3"], prep["dnb3"], prep["dfs3"], prep["init3"], prep["tl3"],
-        rle3, prep["rsym3"], nseq, msb, interpret,
-    )
+    p = jax.device_get(prep)
     r = jax.device_get(ref)
-    g = jax.device_get(got)
+    rle = np.asarray(rle3)
     for b in range(B):
         n = nseqs[b]
-        np.testing.assert_array_equal(r[0][b][:, 1:n], g[0][b][:, 1:n])
-        np.testing.assert_array_equal(r[1][b], g[1][b])
-        np.testing.assert_array_equal(r[2][b][:, 1:n], g[2][b][:, 1:n])
+        pre, fin, nbs = _serial_chain(
+            p["st3"][b], p["dnb3"][b], p["dfs3"][b], p["init3"][b], p["tl3"][b],
+            rle[b], p["rsym3"][b], n,
+        )
+        np.testing.assert_array_equal(r[0][b][:, 1:n], pre[:, 1:n])
+        np.testing.assert_array_equal(r[1][b], fin)
+        np.testing.assert_array_equal(r[2][b][:, 1:n], nbs[:, 1:n])

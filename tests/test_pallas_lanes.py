@@ -1,8 +1,10 @@
-"""Lane-parallel Pallas decode kernels vs the XLA reference decoders.
+"""Chunk-parallel XLA decoders (literals and sequences) vs host decode.
 
-Runs in interpret mode on the CPU backend: builds real accel frames through
-the format layer, stages them with the same prepare helpers the TPU path
-uses, and checks bit-identity against the host format decoder.
+Builds real decode-accelerated frames through the device pipeline (CPU
+backend), stages them the way api/decompress.py does, and checks the
+chunk-parallel decoders of ops/decode_jax.py (decode_huffman_device,
+decode_sequences_device_chunked) byte for byte against the host format
+decoder.
 """
 
 from __future__ import annotations
@@ -10,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-import tpu_zstd.ops.pallas_decode as PD
 from tpu_zstd.api import decompress as D
+from tpu_zstd.api.manager import _bucket
 from tpu_zstd.format.frame import parse_frame_header
 from tpu_zstd.format.accel import parse_accel_tail
 
@@ -31,7 +33,7 @@ def _mixed_data(n: int, seed: int = 7) -> bytes:
 
 
 def _compress_accel(data: bytes):
-    """Compress one block via the TPU pipeline (CPU backend) with accel."""
+    """Compress one block via the device pipeline (CPU backend) with accel."""
     from dataclasses import replace
 
     from tpu_zstd.api.config import CompressionConfig
@@ -61,29 +63,28 @@ def test_huffman_lanes_interpret():
     if parsed is None:
         pytest.skip("literals not 4-stream compressed")
     litdev, consumed, regen = parsed
-    if litdev[4] > 8:
-        pytest.skip("table_log > 8 (host encoder)")
     CL = meta.lit_stride
     lck = meta.blocks[0][4]
-    seg = (regen + 3) // 4
-    ncl_pad = max(32, -(-(-(-seg // CL)) // 32) * 32)
-    slices, bits0, nsym, tl, banks, wmax, R = PD.build_litlane_inputs(
-        [litdev], [lck], ncl_pad, CL
-    )
-    Rpad = -(-R // 1024) * 1024
-    if Rpad > R:
-        ext = (Rpad - R) // 128
-        slices = np.concatenate([slices, np.zeros((wmax, ext, 128), np.int32)], 1)
-        z = np.zeros((ext, 128), np.int32)
-        bits0, nsym, tl = (np.concatenate([a, z]) for a in (bits0, nsym, tl))
-        banks = np.concatenate([banks, np.zeros((ext, 2, 128), np.int32)])
+    streams, tbits, nsym, packed, tl_b, _ = litdev
+    NCL = _bucket(max(-(-max(nsym) // CL), 1), lo=1)
+    sw = max(len(x) for x in streams)
+    lstreams = np.zeros((4, sw), np.uint8)
+    lck_a = np.zeros((4, max(NCL - 1, 1)), np.int32)
+    for r in range(4):
+        lstreams[r, : len(streams[r])] = np.frombuffer(streams[r], np.uint8)
+        n = min(lck.shape[1], NCL - 1)
+        lck_a[r, :n] = lck[r, :n].astype(np.int64).astype(np.int32)
     import jax.numpy as jnp
 
-    syms = PD.decode_huffman_lanes(
-        jnp.asarray(slices), jnp.asarray(bits0), jnp.asarray(nsym),
-        jnp.asarray(tl), jnp.asarray(banks), CL, wmax, True,
+    from tpu_zstd.ops.decode_jax import decode_huffman_device
+
+    syms = decode_huffman_device(
+        jnp.asarray(lstreams), jnp.asarray(np.asarray(tbits, np.int32)),
+        jnp.asarray(packed.astype(np.int32)[None]), jnp.asarray([tl_b], np.int32),
+        jnp.asarray(np.asarray(nsym, np.int32)), CL, NCL, jnp.asarray(lck_a),
     )
-    syms = np.asarray(jax.device_get(syms))[:R].reshape(4, ncl_pad * CL)
+    syms = np.asarray(jax.device_get(syms))
+    seg = (regen + 3) // 4
     # Reference: host literal decode.
     from tpu_zstd.format.frame import decode_literals_section
 
@@ -115,29 +116,25 @@ def test_sequences_lanes_interpret():
     if plan.nbseq == 0:
         pytest.skip("no sequences")
     rec = meta.blocks[0]
-    nc_pad = max(128, -(-(-(-plan.nbseq // C)) // 128) * 128)
-    blk = {
-        "stream": plan.stream, "tbits": plan.total_bits, "nseq": plan.nbseq,
-        "tables": plan.tables, "ckb": rec[1], "cks": rec[2], "ckr": rec[3],
-    }
-    sl, b0, s0, r0, nloc, nupd, banks, wmax, R = PD.build_seqlane_inputs(
-        [blk], nc_pad, C
+    NC = _bucket(max(-(-plan.nbseq // C), 1), lo=1)
+    ckb = np.zeros((1, max(NC - 1, 1)), np.int32)
+    cks = np.zeros((1, max(NC - 1, 1)), np.int32)
+    ckr = np.ones((1, max(NC - 1, 1), 3), np.int32)
+    n = min(len(rec[1]), NC - 1)
+    ckb[0, :n] = rec[1][:n].astype(np.int64).astype(np.int32)
+    cks[0, :n] = rec[2][:n].astype(np.int64).astype(np.int32)
+    ckr[0, :n] = rec[3][:n].astype(np.int64).astype(np.int32)
+    sym, nb, ns, logs = plan.tables
+    from tpu_zstd.ops.decode_jax import SeqTables, decode_sequences_device_chunked
+
+    ll, ml, off, _ = decode_sequences_device_chunked(
+        jnp.asarray(np.frombuffer(plan.stream, np.uint8)[None]),
+        jnp.asarray([plan.total_bits], np.int32),
+        SeqTables(*(jnp.asarray(np.asarray(t)[None]) for t in (sym, nb, ns, logs))),
+        jnp.asarray([plan.nbseq], np.int32),
+        jnp.asarray(ckb), jnp.asarray(cks), jnp.asarray(ckr), C, NC, D.MAX_SEQS_DEC,
     )
-    Rpad = -(-R // 1024) * 1024
-    if Rpad > R:
-        ext = (Rpad - R) // 128
-        sl = np.concatenate([sl, np.zeros((wmax, ext, 128), np.int32)], 1)
-        z = np.zeros((ext, 128), np.int32)
-        b0, s0, nloc, nupd = (np.concatenate([a, z]) for a in (b0, s0, nloc, nupd))
-        r0 = np.concatenate([r0, np.ones((3, ext, 128), np.int32)], 1)
-        banks = np.concatenate([banks, np.zeros((ext, 12, 128), np.int32)])
-    llb, mlb = PD._value_banks()
-    ll, ml, off = PD.decode_sequences_lanes(
-        jnp.asarray(sl), jnp.asarray(b0), jnp.asarray(s0), jnp.asarray(r0),
-        jnp.asarray(nloc), jnp.asarray(nupd), jnp.asarray(banks),
-        jnp.asarray(llb), jnp.asarray(mlb), C, wmax, True,
-    )
-    ll, ml, off = (np.asarray(jax.device_get(a))[:R].reshape(-1) for a in (ll, ml, off))
+    ll, ml, off = (np.asarray(jax.device_get(a))[0] for a in (ll, ml, off))
     # Reference: host sequence decode with resolved offsets.
     from tpu_zstd.constants import REPCODE_INIT
     from tpu_zstd.format.sequences import decode_sequences_section, resolve_offset

@@ -1,11 +1,16 @@
-"""Repcode kernel vs the host encode_offsets oracle (unknown-init variant)."""
+"""Repcode walk: the lax.scan reference vs the host oracle (unknown-init
+variant), and the Pallas kernel (Triton route, run by the Pallas
+interpreter here) vs the scan."""
 
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpu_zstd.format.sequences import encode_offset
-from tpu_zstd.ops.pallas_rep import rep_codes, rep_codes_scan
+from tpu_zstd import platform
+from tpu_zstd.ops import pallas_rep
+from tpu_zstd.ops.pallas_rep import rep_codes, rep_codes_blocks, rep_codes_scan
 
 I32 = jnp.int32
 
@@ -62,17 +67,46 @@ def test_scan_matches_oracle(seed):
     assert (want <= 3).sum() > 20  # the case actually exercises repcodes
 
 
-def test_kernel_matches_scan():
-    rng = np.random.default_rng(7)
-    S, rows = 3, 1024
+@pytest.mark.parametrize(
+    "S,rows,prefix",
+    [(3, 1024, False), (37, 200, True), (32, 64, True), (1, 7, False)],
+)
+def test_kernel_matches_scan(S, rows, prefix):
+    """Whole and partial tiles of blocks, row counts off the unroll, valid
+    rows as a prefix (the pipeline's case) or scattered."""
+    rng = np.random.default_rng(7 + S)
     offs = rng.choice([4, 8, 100, 101, 7], (S, rows)).astype(np.int64)
     lls = rng.integers(0, 2, (S, rows))
-    valid = rng.random((S, rows)) < 0.9
+    if prefix:
+        valid = np.arange(rows)[None, :] < rng.integers(0, rows + 1, (S, 1))
+    else:
+        valid = rng.random((S, rows)) < 0.9
     packed = _pack(offs, lls, valid)
-    got = np.asarray(rep_codes(packed))
-    for s in range(S):
-        want = np.asarray(rep_codes_scan(packed[s]))
-        np.testing.assert_array_equal(got[s], want)
+    got = np.asarray(rep_codes_blocks(packed, interpret=True))
+    want = np.asarray(jax.vmap(rep_codes_scan)(packed))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("gpu", [False, True])
+def test_rep_codes_choice_under_vmap(monkeypatch, gpu):
+    """rep_codes takes the kernel only where the platform module says so,
+    and under vmap the kernel takes the whole batch in one call."""
+    calls = []
+
+    def kernel(packed, interpret=False):
+        calls.append(packed.shape)
+        return rep_codes_blocks(packed, interpret=True)
+
+    monkeypatch.setattr(platform, "use_gpu_kernels", lambda: gpu)
+    monkeypatch.setattr(pallas_rep, "rep_codes_blocks", kernel)
+    rng = np.random.default_rng(5)
+    packed = _pack(
+        rng.choice([3, 9, 27], (5, 96)).astype(np.int64),
+        rng.integers(0, 2, (5, 96)), np.ones((5, 96), bool),
+    )
+    got = np.asarray(jax.vmap(rep_codes)(packed))
+    np.testing.assert_array_equal(got, np.asarray(jax.vmap(rep_codes_scan)(packed)))
+    assert ((5, 96) in calls) if gpu else not calls
 
 
 def test_updates_agree_with_rfc_resolution():

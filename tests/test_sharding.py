@@ -1,7 +1,7 @@
 """Multi-chip (virtual 8-device CPU mesh) sharding tests.
 
 The conftest forces XLA_FLAGS=--xla_force_host_platform_device_count=8, so
-these run without TPU hardware, exactly like the driver's dry run.
+these run without accelerators.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""TPU (device-side) decompression tests.
+"""Device-side decompression tests.
 
 Mirrors the reference's decompression coverage (tests/test_roundtrip.cu,
 test_fse_sequence_decode.cu, sequence execution in test_sequence_encoder.cu):

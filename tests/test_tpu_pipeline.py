@@ -1,8 +1,8 @@
-"""End-to-end tests for the TPU (JAX) compression pipeline.
+"""End-to-end tests for the device (JAX) compression pipeline.
 
 Oracle strategy mirrors the reference's test suite (tests/test_roundtrip.cu,
 tests/test_pipeline_integration.cu external-decoder check): every frame the
-TPU pipeline emits must be decodable by stock libzstd (`zstandard` package)
+device pipeline emits must be decodable by stock libzstd (`zstandard` package)
 and by our own host decoder, with bit-exact content recovery.
 """
 

@@ -1,16 +1,18 @@
-"""tpu_zstd — TPU-native Zstandard (RFC 8878) compression framework.
+"""tpu_zstd — a JAX Zstandard (RFC 8878) compression framework.
 
 A ground-up JAX/XLA re-design with the capabilities of the reference CUDA
 library `RhushabhVaghela/Custom-NVComp-with-ZSTD`: RFC 8878 compression and
-decompression, batch and streaming APIs, hybrid CPU/TPU routing, dictionary
-support, and multi-chip scaling via jax.sharding. Output is decodable by
-stock libzstd.
+decompression, batch and streaming APIs, hybrid CPU/accelerator routing,
+dictionary support, and multi-device scaling via jax.sharding. Output is
+decodable by stock libzstd.
 
 Module map:
   tpu_zstd.format    host-side RFC 8878 reference codec (numpy)
-  tpu_zstd.ops       TPU compute pipeline (jitted JAX; Pallas where it wins)
+  tpu_zstd.ops       device compute pipeline (jitted JAX; Pallas kernels
+                     through Triton on the GPU)
   tpu_zstd.api       managers / hybrid engine / config / status
-  tpu_zstd.parallel  multi-chip sharding (mesh batch parallelism)
+  tpu_zstd.parallel  multi-device sharding (mesh batch parallelism)
+  tpu_zstd.platform  the one module that decides which machine runs
 """
 
 from __future__ import annotations
@@ -40,18 +42,15 @@ __version__ = "0.1.0"
 
 
 def is_tpu_available() -> bool:
-    """True when a TPU device is visible to JAX (counterpart of
-    cuda_zstd.is_cuda_available, reference python/cuda_zstd/__init__.py)."""
-    try:
-        import jax
+    """True when JAX sees an accelerator, such as a CUDA GPU (counterpart of
+    cuda_zstd.is_cuda_available; see platform.accelerator_available)."""
+    from .platform import accelerator_available
 
-        return any(d.platform == "tpu" for d in jax.devices())
-    except Exception:
-        return False
+    return accelerator_available()
 
 
 def compress(data: bytes, level: int = 3, checksum: bool = False) -> bytes:
-    """One-shot compression (auto CPU/TPU routing by size)."""
+    """One-shot compression (auto CPU/device routing by size)."""
     cfg = CompressionConfig.from_level(level)
     if checksum:
         cfg.checksum = ChecksumPolicy.COMPUTE
@@ -66,7 +65,7 @@ def decompress(data: bytes, max_output_size: int | None = None) -> bytes:
 
 
 def compress_batch(items: list[bytes], level: int = 3) -> list[bytes]:
-    """Compress many independent buffers in one TPU dispatch."""
+    """Compress many independent buffers in one device dispatch."""
     with BatchManager(level=level) as m:
         return [it.output for it in m.compress_batch(items)]
 
@@ -77,7 +76,7 @@ def decompress_batch(items: list[bytes]) -> list[bytes]:
 
 
 def hybrid_compress(data, level: int = 3) -> bytes:
-    """Compress with automatic CPU/TPU backend selection."""
+    """Compress with automatic CPU/device backend selection."""
     return HybridEngine(compression=CompressionConfig.from_level(level)).compress(data)
 
 

@@ -1,6 +1,6 @@
 """Adaptive compression-level selection from data characteristics.
 
-TPU-native counterpart of the reference's AdaptiveLevelSelector
+Counterpart of the reference's AdaptiveLevelSelector
 (reference include/cuda_zstd_adaptive.h:47-86, src/cuda_zstd_adaptive.cu:
 `analyze_entropy_kernel` :18, `analyze_repetition_kernel` :49,
 `analyze_patterns_kernel` :74, decision table :243-280): samples the first

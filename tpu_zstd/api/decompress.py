@@ -1,4 +1,4 @@
-"""Batched TPU decompression driver: host framing -> device decode kernels.
+"""Batched device decompression driver: host framing -> device decode.
 
 Counterpart of the reference's decompress stack driver
 (reference src/cuda_zstd_manager.cu:3194-3780: frame parse, per-block loop
@@ -18,6 +18,10 @@ decoded window and repcode state carry to the next block index (RFC 8878
 
 from __future__ import annotations
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from ..constants import (
@@ -28,7 +32,6 @@ from ..constants import (
     SKIPPABLE_MAGIC_MAX,
     SKIPPABLE_MAGIC_MIN,
 )
-from ..format import huffman as hufmod
 from ..format.frame import decode_literals_section, parse_frame_header
 from ..format.sequences import SeqDecodeTables, read_nbseq, read_sequence_table
 from ..format.xxhash import content_checksum
@@ -45,75 +48,17 @@ MAX_SEQS_DEC = 44032  # ceil(128K / 3) chunk-aligned
 TSIZE_MAX = 512
 
 
-PALLAS_BUF_MAX = 2 * 1024 * 1024 + 128 * 1024  # window+block bytes fitting VMEM
-
-
-def _on_tpu() -> bool:
-    import jax
-
-    dev = jax.devices()[0]
-    return "tpu" in (
-        dev.platform.lower() + " " + getattr(dev, "device_kind", "").lower()
-    )
-
-
-def _pick_executor(buf_bytes: int = 0):
-    """Sequence executor: the Pallas sequential-copy kernel on TPU (2.6x the
-    XLA pointer-doubling executor on v5e, tools/exec_micro.py) while the
-    window+block buffer fits VMEM; XLA elsewhere (interpret-mode Pallas is
-    far slower than XLA on CPU, and long-window frames exceed VMEM)."""
-    import jax
-
-    dev = jax.devices()[0]
-    is_tpu = "tpu" in (
-        dev.platform.lower() + " " + getattr(dev, "device_kind", "").lower()
-    )
-    if is_tpu and buf_bytes <= PALLAS_BUF_MAX:
-        import functools
-
-        from ..ops.pallas_exec import (
-            execute_sequences_pallas,
-            execute_sequences_pallas_mb,
-        )
-
-        # Multi-block groups when the per-group VMEM footprint allows it:
-        # interleaving G independent blocks per grid step hides each
-        # sequence's dependent-op latency (~1.2-1.5x v4 measured on v5e).
-        G = 1
-        for cand in (8, 4, 2):
-            # ~8 bytes VMEM per buffered byte (i32 block buf + literal buf).
-            if cand * 8 * buf_bytes <= 11 * 1024 * 1024:
-                G = cand
-                break
-        if G > 1:
-            return functools.partial(execute_sequences_pallas_mb, group=G)
-        return execute_sequences_pallas
-    from ..ops.decode_jax import execute_sequences_device
-
-    return execute_sequences_device
-
-
+@functools.partial(jax.jit, static_argnums=(3,))
 def _carry_window(win_prev, out, olen, Wn: int):
     """Device-side history carry: right-aligned last Wn bytes of
     concat(win_prev, out[:, :olen]) per row — no host round-trip between
     block rounds."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    @functools.partial(jax.jit, static_argnums=(3,))
-    def run(win_prev, out, olen, Wn):
-        _, Wp = win_prev.shape
-        M = out.shape[1]
-        idx = jnp.arange(Wn, dtype=jnp.int32)[None, :] - Wn + olen[:, None]
-        out_g = jnp.take_along_axis(out, jnp.clip(idx, 0, M - 1), axis=1)
-        win_g = jnp.take_along_axis(
-            win_prev, jnp.clip(idx + Wp, 0, Wp - 1), axis=1
-        )
-        return jnp.where(idx >= 0, out_g, win_g)
-
-    return run(win_prev, out, olen, Wn)
+    _, Wp = win_prev.shape
+    M = out.shape[1]
+    idx = jnp.arange(Wn, dtype=jnp.int32)[None, :] - Wn + olen[:, None]
+    out_g = jnp.take_along_axis(out, jnp.clip(idx, 0, M - 1), axis=1)
+    win_g = jnp.take_along_axis(win_prev, jnp.clip(idx + Wp, 0, Wp - 1), axis=1)
+    return jnp.where(idx >= 0, out_g, win_g)
 
 
 class _BlockPlan:
@@ -280,10 +225,11 @@ def decompress_batch_tpu(
     ceiling 1 GB), so any valid frame decodes; passing a smaller cap trades
     correctness on long-window frames for memory.
     """
-    import jax
-    import jax.numpy as jnp
-
-    from ..ops.decode_jax import SeqTables, decode_sequences_device
+    from ..ops.decode_jax import (
+        SeqTables,
+        decode_sequences_device,
+        execute_sequences_device,
+    )
     from .manager import _bucket
 
     nf = len(frames)
@@ -399,7 +345,6 @@ def decompress_batch_tpu(
                 lits[i, : len(p)] = np.frombuffer(p, np.uint8)
                 nlit[i] = len(p)
 
-        execute_sequences = _pick_executor(Wcur + max_block)
         nseq_j = jnp.asarray(nseq)
         nlit_j = jnp.asarray(nlit)
         lits_j = jnp.asarray(lits)
@@ -414,7 +359,7 @@ def decompress_batch_tpu(
             # Rows without sequences pass rep through unchanged inside the
             # decoder, so the carry needs no masking.
             rep_dev = rep_fin
-            out, out_len = execute_sequences(
+            out, out_len = execute_sequences_device(
                 lits_j, nlit_j, ll, ml, off, nseq_j, win_dev, max_block, Wcur,
             )
         else:
@@ -464,8 +409,6 @@ class DecompressPlan:
         # Upload the regrouping permutation once — execute() must stay free
         # of H2D transfers (its documented steady-state contract).
         if inv is not None:
-            import jax.numpy as jnp
-
             inv = jnp.asarray(inv)
         self._inv = inv  # None when a single group covers all frames
         # Per-frame stored frame checksums (low 4 bytes of XXH64), None where
@@ -480,8 +423,6 @@ class DecompressPlan:
         are skipped) — raising ValueError on mismatch. This costs a D2H
         transfer per call; leave it off in steady-state inference loops.
         """
-        import jax
-        import jax.numpy as jnp
 
         if self._inv is None:
             out, out_len = self._runners[0][0]()
@@ -530,11 +471,13 @@ def _prepare_multiblock_plan(
     contiguous (B, max_out) buffer) — the reference's preallocated batch
     decompress handles arbitrary frames the same way (manager.h:193-273).
     """
-    import jax
-    import jax.numpy as jnp
 
     from ..format.accel import parse_accel_tail
-    from ..ops.decode_jax import SeqTables, decode_sequences_device
+    from ..ops.decode_jax import (
+        SeqTables,
+        decode_sequences_device,
+        execute_sequences_device,
+    )
     from .manager import _bucket
 
     nf = len(frames)
@@ -555,7 +498,7 @@ def _prepare_multiblock_plan(
         hdr = parse_frame_header(f[pos:])
         hdrs.append(hdr)
         cursors.append(pos + hdr.header_size)
-    # The chained-round carry window is capped at 4 MiB (VMEM/HBM shape
+    # The chained-round carry window is capped at 4 MiB (device memory
     # budget). A frame whose declared window (bounded by its content size
     # when known) exceeds the cap could reference history the plan no longer
     # holds and decode to garbage — refuse it loudly instead
@@ -671,13 +614,12 @@ def _prepare_multiblock_plan(
         outs = []
         lens = []
         for r, st in enumerate(staged):
-            execute_sequences = _pick_executor(Wcur + max_block)
             if st["any_seqs"]:
                 ll, ml, off, rep = decode_sequences_device(
                     st["streams"], st["tbits"], st["tables"], st["nseq"],
                     rep, MAX_SEQS_DEC,
                 )
-                out, out_len = execute_sequences(
+                out, out_len = execute_sequences_device(
                     st["lits"], st["nlit"], ll, ml, off, st["nseq"], win,
                     max_block, Wcur,
                 )
@@ -703,35 +645,22 @@ def _prepare_multiblock_plan(
     return DecompressPlan([(run, nf)], nf, None, checksums)
 
 
+@functools.partial(jax.jit, static_argnums=(2,))
 def _assemble_rounds(outs, lens, MO: int):
     """(R, B, M) round outputs -> contiguous (B, MO) + total lengths."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    @functools.partial(jax.jit, static_argnums=(2,))
-    def impl(outs, lens, MO):
-        R, B, M = outs.shape
-        cum = jnp.cumsum(lens, axis=0)  # (R, B) inclusive
-        start = cum - lens              # (R, B) exclusive
-        j = jnp.arange(MO, dtype=jnp.int32)[None, :]
-        # round of output position j: number of rounds fully before j
-        rsel = jnp.sum(
-            (j[None] >= cum[:, :, None]).astype(jnp.int32), axis=0
-        )  # (B, MO)
-        rsel_c = jnp.clip(rsel, 0, R - 1)
-        st = jnp.take_along_axis(
-            start.T, rsel_c, axis=1
-        )  # (B, MO) start of that round
-        pos = jnp.clip(j - st, 0, M - 1)
-        bidx = jnp.arange(B, dtype=jnp.int32)[:, None]
-        flat = outs.transpose(1, 0, 2).reshape(B, R * M)
-        out = jnp.take_along_axis(flat, rsel_c * M + pos, axis=1)
-        total = cum[-1]
-        return jnp.where(j < total[:, None], out, 0).astype(jnp.uint8), total
-
-    return impl(outs, lens, MO)
+    R, B, M = outs.shape
+    cum = jnp.cumsum(lens, axis=0)  # (R, B) inclusive
+    start = cum - lens              # (R, B) exclusive
+    j = jnp.arange(MO, dtype=jnp.int32)[None, :]
+    # round of output position j: number of rounds fully before j
+    rsel = jnp.sum((j[None] >= cum[:, :, None]).astype(jnp.int32), axis=0)  # (B, MO)
+    rsel_c = jnp.clip(rsel, 0, R - 1)
+    st = jnp.take_along_axis(start.T, rsel_c, axis=1)  # (B, MO) start of that round
+    pos = jnp.clip(j - st, 0, M - 1)
+    flat = outs.transpose(1, 0, 2).reshape(B, R * M)
+    out = jnp.take_along_axis(flat, rsel_c * M + pos, axis=1)
+    total = cum[-1]
+    return jnp.where(j < total[:, None], out, 0).astype(jnp.uint8), total
 
 
 def prepare_decompress_batch(
@@ -739,17 +668,16 @@ def prepare_decompress_batch(
 ) -> DecompressPlan:
     """Parse frames, build decode tables, and upload everything to the device.
 
-    Single-block frames take the fused lane-kernel path (one device dispatch
-    per size group); batches containing multi-block frames chain block
+    Single-block frames decode in one device dispatch per size group; batches containing multi-block frames chain block
     rounds on device with window/repcode carry (_prepare_multiblock_plan).
     """
-    import jax.numpy as jnp
 
     from ..format.accel import parse_accel_tail
     from ..ops.decode_jax import (
         SeqTables,
         decode_sequences_device,
         decode_sequences_device_chunked,
+        execute_sequences_device as execute_sequences,
     )
     from .manager import _bucket
 
@@ -766,8 +694,6 @@ def prepare_decompress_batch(
         bh = int.from_bytes(f[pos + h.header_size : pos + h.header_size + 3], "little")
         if not (bh & 1):
             return _prepare_multiblock_plan(frames, max_block)
-
-    execute_sequences = _pick_executor(max_block)
 
     nf = len(frames)
     plans: list[_BlockPlan | None] = []
@@ -896,81 +822,7 @@ def prepare_decompress_batch(
         nseq_j = jnp.asarray(nseq)
         nlit_j = jnp.asarray(nlit)
         zwin = jnp.zeros((B, 1), jnp.uint8)
-        if use_accel and _on_tpu():
-            # Lane-parallel Pallas sequence decode: one chunk per lane with
-            # in-kernel taa table banks (ops/pallas_decode.py).
-            from ..ops.pallas_decode import (
-                _value_banks,
-                build_seqlane_inputs,
-                decode_sequences_lanes,
-            )
-
-            max_nc = max(
-                (-(-int(nseq[bi]) // C) for bi, i in enumerate(idxs) if plans[i] is not None),
-                default=1,
-            )
-            nc_pad = max(128, -(-max_nc // 128) * 128)
-            blocks = []
-            for bi, i in enumerate(idxs):
-                p = plans[i]
-                rec = metas[i]
-                if p is None or p.nbseq == 0 or rec is None:
-                    blocks.append(None)
-                    continue
-                blocks.append({
-                    "stream": p.stream,
-                    "tbits": p.total_bits,
-                    "nseq": p.nbseq,
-                    "tables": p.tables,
-                    "ckb": rec[1],
-                    "cks": rec[2],
-                    "ckr": rec[3],
-                })
-            blocks += [None] * (B - ng)
-            (sl_s, sb0, sst0, srep0, snloc, snupd, sbanks, swmax, SR) = (
-                build_seqlane_inputs(blocks, nc_pad, C)
-            )
-            SRpad = -(-SR // 1024) * 1024
-            if SRpad > SR:
-                ext = (SRpad - SR) // 128
-                sl_s = np.concatenate(
-                    [sl_s, np.zeros((swmax, ext, 128), np.int32)], axis=1
-                )
-                z = np.zeros((ext, 128), np.int32)
-                sb0 = np.concatenate([sb0, z])
-                sst0 = np.concatenate([sst0, z])
-                srep0 = np.concatenate(
-                    [srep0, np.ones((3, ext, 128), np.int32)], axis=1
-                )
-                snloc = np.concatenate([snloc, z])
-                snupd = np.concatenate([snupd, z])
-                sbanks = np.concatenate(
-                    [sbanks, np.zeros((ext, 12, 128), np.int32)]
-                )
-            sl_j = jnp.asarray(sl_s)
-            sb0_j = jnp.asarray(sb0)
-            sst0_j = jnp.asarray(sst0)
-            srep0_j = jnp.asarray(srep0)
-            snloc_j = jnp.asarray(snloc)
-            snupd_j = jnp.asarray(snupd)
-            sbanks_j = jnp.asarray(sbanks)
-            llb_np, mlb_np = _value_banks()
-            llb_j = jnp.asarray(llb_np)
-            mlb_j = jnp.asarray(mlb_np)
-            rep_dummy = jnp.tile(jnp.asarray([1, 4, 8], jnp.int32)[None], (B, 1))
-
-            def _decode_seqs(_SR=SR, _swmax=swmax, _MS=nc_pad * C):
-                ll, ml, off = decode_sequences_lanes(
-                    sl_j, sb0_j, sst0_j, srep0_j, snloc_j, snupd_j,
-                    sbanks_j, llb_j, mlb_j, C, _swmax,
-                )
-                return (
-                    ll[:_SR].reshape(B, _MS),
-                    ml[:_SR].reshape(B, _MS),
-                    off[:_SR].reshape(B, _MS),
-                    rep_dummy,
-                )
-        elif use_accel:
+        if use_accel:
             max_nc = max(
                 (-(-int(nseq[bi]) // C) for bi, i in enumerate(idxs) if plans[i] is not None),
                 default=1,
@@ -1006,76 +858,6 @@ def prepare_decompress_batch(
         group_litdev = [i for i in idxs if i in litdev_set]
         _decode_lits = None
         regen_j = None
-        # Lane-parallel Pallas literal decode (ops/pallas_decode.py): one
-        # stream chunk per lane, in-kernel table gathers. Requires a TPU,
-        # a whole-group device-literal batch, and table_log <= 8 (the
-        # encoder caps accel frames there; foreign frames fall back).
-        use_lanes = (
-            group_litdev
-            and all_dev
-            and CL % 2 == 0
-            and _on_tpu()
-            and all(plans[i].litdev[4] <= 11 for i in group_litdev)
-        )
-        if use_lanes:
-            from ..ops.pallas_decode import (
-                build_litlane_inputs,
-                decode_huffman_lanes,
-            )
-
-            max_sym = max(max(plans[i].litdev[2]) for i in group_litdev)
-            ncl_pad = max(-(-_bucket(max(-(-max_sym // CL), 1), lo=1) // 32) * 32, 32)
-            dummy_lit = ([b"", b"", b"", b""], [0] * 4, [0] * 4,
-                         np.zeros(2048, np.int32), 1, 0)
-            dummy_lck = np.zeros((4, 0), np.uint32)
-            litdevs = [plans[i].litdev for i in idxs] + [dummy_lit] * (B - ng)
-            lcks = [metas[i][4] for i in idxs] + [dummy_lck] * (B - ng)
-            slices, bits0, nsym_a, tl_a, banks, wmax, R = build_litlane_inputs(
-                litdevs, lcks, ncl_pad, CL
-            )
-            # Pad rows to a whole number of 1024-chunk tiles.
-            Rpad = -(-R // 1024) * 1024
-            if Rpad > R:
-                ext = (Rpad - R) // 128
-                slices = np.concatenate(
-                    [slices, np.zeros((wmax, ext, 128), np.int32)], axis=1
-                )
-                z = np.zeros((ext, 128), np.int32)
-                bits0 = np.concatenate([bits0, z])
-                nsym_a = np.concatenate([nsym_a, z])
-                tl_a = np.concatenate([tl_a, z])
-                banks = np.concatenate(
-                    [banks, np.zeros((ext, 2, 128), np.int32)]
-                )
-            slices_j = jnp.asarray(slices)
-            bits0_j = jnp.asarray(bits0)
-            nsyml_j = jnp.asarray(nsym_a)
-            tl_j = jnp.asarray(tl_a)
-            banks_j = jnp.asarray(banks)
-            regen_j = jnp.asarray(
-                np.asarray(
-                    [plans[i].litdev[5] for i in idxs] + [0] * (B - ng), np.int32
-                )
-            )
-            SEGC = ncl_pad * CL
-
-            def _decode_lits(_R=R, _wmax=wmax, _SEGC=SEGC):
-                syms = decode_huffman_lanes(
-                    slices_j, bits0_j, nsyml_j, tl_j, banks_j, CL, _wmax
-                )
-                return syms[:_R].reshape(B * 4, _SEGC)
-
-            zlit = jnp.zeros((B, 1), jnp.uint8)
-
-            def run():
-                ll, ml, off, _ = _decode_seqs()
-                syms = _decode_lits()
-                return execute_sequences(
-                    zlit, nlit_j, ll, ml, off, nseq_j, zwin, max_block, 1,
-                    lit_src=(syms, regen_j),
-                )
-
-            return run
         if group_litdev:
             from ..ops.decode_jax import (
                 assemble_literals_4stream,
@@ -1164,27 +946,17 @@ def prepare_decompress_batch(
     # few sequences/literals stop padding to the batch max — at stride 64 a
     # 2K-seq block in a batch with a 32K-seq block otherwise runs 16x the
     # scan rows it needs. Raw/RLE and host-literal frames form their own
-    # group so all-device groups take the fused executor path. On TPU the
-    # lane kernels pad chunks to >= 128 (sequences) / >= 32 (literal) rows
-    # per block anyway, so finer buckets only multiply dispatches — clamp
-    # the keys to that granularity there.
-    on_tpu = _on_tpu()
-    nc_floor = 128 if on_tpu else 1
-    ncl_floor = 32 if on_tpu else 1
+    # group so all-device groups take the fused executor path.
     groups: dict = {}
     for i in range(nf):
         p = plans[i]
         if p is None:
             key = ("host", 0, 0)
         else:
-            nc = (
-                max(_bucket(max(-(-p.nbseq // C), 1), lo=1), nc_floor)
-                if (use_accel and C)
-                else 0
-            )
+            nc = _bucket(max(-(-p.nbseq // C), 1), lo=1) if (use_accel and C) else 0
             if i in litdev_set:
                 seg = (p.litdev[5] + 3) // 4
-                key = ("dev", nc, max(_bucket(max(-(-seg // CL), 1), lo=1), ncl_floor))
+                key = ("dev", nc, _bucket(max(-(-seg // CL), 1), lo=1))
             else:
                 key = ("host", nc, 0)
         groups.setdefault(key, []).append(i)

@@ -1,6 +1,6 @@
 """RFC 8878 (Zstandard) format constants and code tables.
 
-TPU-native rewrite: these mirror the normative tables of RFC 8878 used by the
+Rewrite: these mirror the normative tables of RFC 8878 used by the
 reference CUDA implementation (see reference include/cuda_zstd_fse.h:368-372 for
 the predefined FSE distributions and src/cuda_zstd_manager.cu:3998/4108 for the
 frame-header fields), but are written from the RFC, not ported.

@@ -1,6 +1,6 @@
 """Dictionary training (COVER-style) and dictionary compression.
 
-TPU-native counterpart of the reference's dictionary subsystem
+Counterpart of the reference's dictionary subsystem
 (reference src/cuda_zstd_dictionary.cu: `train_dictionary_gpu` :179 —
 concatenate samples, `count_byte_frequencies_kernel` :32, d-mer hash counting
 :48, `select_top_patterns_kernel` :82; format include/cuda_zstd_dictionary.h).
@@ -158,7 +158,7 @@ def read_dictionary(data: bytes) -> Dictionary:
 def compress_with_dict(
     items: list[bytes], dictionary: Dictionary, config=None
 ) -> list[bytes]:
-    """Compress small records against a shared dictionary, one TPU dispatch.
+    """Compress small records against a shared dictionary, one device dispatch.
 
     Frames are emitted WITHOUT a dictionary ID (raw-content semantics): the
     decoder must supply the same dictionary (zstandard: dict_data=...,

@@ -1,7 +1,7 @@
 """Decode-acceleration metadata: skippable frames carrying FSE decoder
 checkpoints.
 
-A TPU decoder spends its time in a bit-serial FSE chain (RFC 8878 §4.1.1:
+A device decoder spends its time in a bit-serial FSE chain (RFC 8878 §4.1.1:
 each sequence's bit consumption depends on the previous state). Our encoder
 already knows every intermediate decoder state, so it can publish
 checkpoints — (unread-bit cursor, LL/OF/ML states, full repcode triple)

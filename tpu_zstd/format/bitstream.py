@@ -9,7 +9,7 @@ first).
 
 Mirrors the semantics of the reference's GPU bitstream (reference
 src/gpu_bitstream.cuh:14-50), re-implemented from the RFC for host-side use.
-The TPU-side equivalent is the vectorized bit-deposit in tpu_zstd/ops/bitpack.py.
+The device-side equivalent is the vectorized bit-deposit in tpu_zstd/ops/bitpack.py.
 """
 
 from __future__ import annotations

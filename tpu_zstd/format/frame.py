@@ -4,7 +4,7 @@ Counterpart of the reference's DefaultZstdManager frame logic
 (reference src/cuda_zstd_manager.cu:1536-3780: frame-header writer :3998,
 frame parser :4108, per-block loop :3560-3640, literals :4406/:4981,
 sequences :4493/:5106) — re-implemented from the RFC as the host-side
-correctness oracle. The TPU pipeline in tpu_zstd/ops/pipeline.py emits the
+correctness oracle. The device pipeline in tpu_zstd/ops/pipeline.py emits the
 same byte format.
 """
 

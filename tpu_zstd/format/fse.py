@@ -2,7 +2,7 @@
 
 Host-side reference implementation (numpy). The reference implements this
 subsystem in ~7.4 kLoC of CUDA (reference src/cuda_zstd_fse.cu,
-src/cuda_zstd_fse_chunk_kernel.cuh); the TPU-parallel formulation lives in
+src/cuda_zstd_fse_chunk_kernel.cuh); the data-parallel formulation lives in
 tpu_zstd/ops/fse_jax.py. This module provides:
 
 - symbol spread (state table layout)

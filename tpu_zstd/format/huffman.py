@@ -3,7 +3,7 @@
 Counterpart of reference src/cuda_zstd_huffman.cu (2449 LoC CUDA), re-derived
 from the RFC: canonical length-limited codes (package-merge), weight
 serialization (direct 4-bit or FSE-compressed), and the 1-stream / 4-stream
-literal bitstream formats. The TPU-parallel encoder lives in
+literal bitstream formats. The data-parallel encoder lives in
 tpu_zstd/ops/huffman_jax.py.
 
 Zstd Huffman conventions:

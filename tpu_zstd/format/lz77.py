@@ -1,8 +1,8 @@
 """Host-side LZ77 match finding (hash-chain greedy / lazy parse).
 
-Correctness oracle and spec for the TPU matcher in tpu_zstd/ops/lz77_jax.py.
+Correctness oracle and spec for the device matcher in tpu_zstd/ops/lz77_jax.py.
 Counterpart of reference src/lz77_parallel.cu (per-position hash/chain search +
-greedy parse) — re-designed: the TPU version uses a sort-based
+greedy parse) — re-designed: the device version uses a sort-based
 previous-occurrence search instead of atomic hash-table inserts; this host
 version uses a classic sequential hash chain.
 """

@@ -1,6 +1,6 @@
 """Vectorized bit deposit: pack variable-width bit fields into a u32 word stream.
 
-TPU-native replacement for the reference's sequential GPU bitstream writer
+Data-parallel replacement for the reference's sequential GPU bitstream writer
 (reference src/gpu_bitstream.cuh:14-50 `BIT_CStream_t`): instead of a serial
 LSB-first append loop, every field's absolute bit offset is computed with one
 prefix sum and all fields are deposited in parallel with two scatter-adds
@@ -34,7 +34,7 @@ def deposit_bits(values: jax.Array, lengths: jax.Array, num_words: int) -> tuple
     total_bits = offs[-1] + lengths[-1]
 
     if values.shape[0] >= 4096:
-        # Large deposits: tree-concatenation path (~10x the sort-based rate).
+        # Large deposits: tree-concatenation path (no scatters).
         return deposit_bits_tree(values, lengths, num_words)
 
     mask = jnp.where(
@@ -94,9 +94,8 @@ def deposit_bits_at_sorted(
 ) -> jax.Array:
     """deposit_bits_at via sort + segmented sum instead of scatter-add.
 
-    v5e: XLA sort moves ~330M rows/s with free extra operands, scatter ~130M
-    elem/s — so route the word contributions through two sorts and make the
-    final scatter one row per OUTPUT word (num_words) instead of one per
+    Routes the word contributions through two sorts so the final scatter
+    writes one row per OUTPUT word (num_words) instead of one per
     contribution (2x field count): sort contributions by word, prefix-sum,
     keep each word's last row (segment tail), compact tails to the front, and
     difference adjacent tail prefix sums. u32 wraparound cancels in the
@@ -148,8 +147,7 @@ def deposit_bits_tree(
     Treats each field as a 1-word bitstream segment and merges adjacent
     segments level by level: B is bit-shifted into place after A with an
     elementwise variable shift plus a log2 static word-roll (`dynroll`).
-    All work is VPU selects/shifts over static shapes, so on v5e this runs
-    ~10x the sort-based deposit rate for large field counts.
+    All work is elementwise selects/shifts over static shapes.
 
     Level-k segments hold at most 2^k * max_field_bits bits, clamped to the
     output capacity, which keeps per-level work ~linear in num_words.
@@ -174,8 +172,8 @@ def deposit_bits_tree(
             # Odd segment counts pad with one empty segment per level instead
             # of rounding the leaf count to a power of two up front — a batch
             # bucket just past a 2^k/3 boundary would otherwise DOUBLE the
-            # whole tree (measured: bucket 20480 -> 24576 regressed the
-            # deposit 1.7x through the 65536 -> 131072 leaf cliff).
+            # whole tree (bucket 20480 -> 24576 would cross the
+            # 65536 -> 131072 leaf cliff).
             words = jnp.pad(words, ((0, 1), (0, 0)))
             lens = jnp.pad(lens, (0, 1))
         segs = words.shape[0] // 2
@@ -239,19 +237,11 @@ def words_to_bytes(words: jax.Array) -> jax.Array:
 def dynroll(x: jax.Array, shift: jax.Array, max_shift: int) -> jax.Array:
     """Right-roll the last axis by a traced shift in [0, max_shift].
 
-    Wide rows on TPU take the one-pass Pallas rotate (ops/pallas_roll.py);
-    everything else decomposes into log2 static rolls + selects: under vmap
-    that stays pure VPU work, whereas jnp.roll / dynamic_update_slice with
-    per-lane offsets lower to scatters/gathers (~100M elem/s on v5e — the
-    difference is ~30x). The log path is also what CPU CI exercises.
+    Decomposes into log2(max_shift) static rolls + selects: under vmap that
+    stays elementwise work, whereas jnp.roll / dynamic_update_slice with
+    per-row offsets lower to gathers/scatters.
     """
     shift = jnp.asarray(shift, jnp.int32)
-    if max_shift > 64:
-        from .pallas_roll import roll_last_maybe
-
-        r = roll_last_maybe(x, shift)
-        if r is not None:
-            return r
     for b in range(max(1, max_shift).bit_length()):
         x = jnp.where((shift >> b) & 1 != 0, jnp.roll(x, 1 << b, axis=-1), x)
     return x

@@ -1,4 +1,4 @@
-"""TPU-parallel Huffman literals encoder (RFC 8878 §4.2, 4-stream format).
+"""Data-parallel Huffman literals encoder (RFC 8878 §4.2, 4-stream format).
 
 Counterpart of the reference's Huffman subsystem (reference
 src/cuda_zstd_huffman.cu: `analyze_frequencies_kernel` :88, host tree build
@@ -32,10 +32,7 @@ F32 = jnp.float32
 
 MAX_BITS = 11
 TSIZE = 1 << MAX_BITS  # Kraft budget at max_bits granularity
-# Round 4 capped accel-frame code lengths at 8 bits so the decode table fit
-# two 128-lane taa banks; the lane decoder now selects across 16 banks
-# (ops/pallas_decode.py) at negligible cost next to the executor wall, so
-# accel frames keep the full 11-bit codes (the 8-bit cap measured ~5.6%
+# Accel frames keep the full 11-bit codes (an 8-bit cap cost ~5.6%
 # compressed size on the bench corpus).
 ACCEL_MAX_BITS = 11
 
@@ -43,8 +40,7 @@ ACCEL_MAX_BITS = 11
 def huff_payload_cap(block_size: int) -> int:
     """Buffer capacity for the worst-case 4-stream payload of one block.
 
-    Rounded up to 4096 bytes (1024 u32 words) so the stream-placement rolls
-    stay on the one-pass Pallas rotate (ops/pallas_roll.py eligibility)."""
+    Rounded up to 4096 bytes (1024 u32 words)."""
     part = block_size // 4 + 4
     num_words = (part * MAX_BITS) // 8 // 4 + 4
     cap = 6 + 4 * (num_words * 4) + 160  # jump + streams + weights header
@@ -62,8 +58,8 @@ def _floor_log2(v: jax.Array) -> jax.Array:
 
 
 def literal_histogram(lits: jax.Array, nlit: jax.Array) -> jax.Array:
-    """(256,) counts of lits[:nlit] — nibble one-hot MXU contraction
-    (ops/fse_tables_jax.histogram_matmul; ~4x the 256-wide compare-reduce)."""
+    """(256,) counts of lits[:nlit] — nibble one-hot contraction
+    (ops/fse_tables_jax.histogram_matmul)."""
     from .fse_tables_jax import histogram_matmul
 
     N = lits.shape[0]
@@ -266,10 +262,9 @@ def _nc_desc_bytes(nc_vals: jax.Array, nc_lens: jax.Array) -> jax.Array:
 def _lut256(table: jax.Array, idx: jax.Array) -> jax.Array:
     """Gather-free 256-entry lookup: two-level 16x16 one-hot contraction.
 
-    Precision.HIGHEST is required: TPU default matmul precision truncates f32
-    operands to bf16 passes, which corrupts table values wider than ~11 bits
-    (measured on v5e: 16-bit packed entries lose low bits at default
-    precision, exact at HIGHEST).
+    Precision.HIGHEST is required: at default precision a float32 matmul may
+    run in reduced precision (TF32 on the GPU), which corrupts table values
+    wider than ~11 bits; at HIGHEST the 16-bit packed entries are exact.
     """
     t = table.astype(F32).reshape(16, 16)
     hi = idx >> 4
@@ -297,8 +292,8 @@ def encode_literals_4stream(
     Each stream is aligned to position 0 with a static-roll shift (streams are
     contiguous slices of the reversed literal order), adjacent same-stream
     symbols merge into one field (two <=11-bit codes always fit 32 bits), and
-    each stream's fields pack via `deposit_bits_tree` (pure VPU pairwise
-    concatenation; ~30x the sort-deposit rate on v5e). The four packed streams
+    each stream's fields pack via `deposit_bits_tree` (elementwise pairwise
+    concatenation). The four packed streams
     then compose at their byte bases with `shift_words`. Code+length ride one
     packed 16-bit LUT value.
     """
@@ -416,7 +411,7 @@ def compress_literals_huffman(
     hdr_arr = jnp.where(use_fse, pad_to(hdr_f), pad_to(whdr))
     hdr_len = jnp.where(use_fse, 1 + flen, wlen)
 
-    cap2 = out_cap + 4096  # 4096-aligned (out_cap is) for the Pallas rotate
+    cap2 = out_cap + 4096  # 4096-aligned (out_cap is)
     out = place(hdr_arr, hdr_len, jnp.zeros((), I32), cap2, 1)
     out = out + place(body, blen, hdr_len, cap2, 256)
     ok = ok_l & (ok_w | ok_f) & ok_s

@@ -1,13 +1,13 @@
-"""TPU-parallel LZ77 match finding + greedy parse for one block (v2).
+"""Data-parallel LZ77 match finding + greedy parse for one block (v2).
 
 Re-design of the reference's per-thread hash-chain kernels
 (reference src/lz77_parallel.cu:26 `find_matches_kernel` — atomicExch hash-table
 inserts + bounded chain walks; :177 `greedy_parse_kernel`; :207
-`build_sequences_gpu_kernel`) for a vector machine with no atomics and *slow
-random access*. Measured on TPU v5e: XLA sort moves ~330M rows/s regardless of
-operand count, while generic gather/scatter does ~100-130M elem/s — so this
-pipeline is built around sorts that CARRY payloads and scans over the static
-axis, with only small compaction scatters:
+`build_sequences_gpu_kernel`) without atomics or hash tables. The design
+dates from a machine whose sorts were much faster than its element gathers,
+so the pipeline is built around sorts that CARRY payloads and scans over the
+static axis, with only small compaction scatters (whether a hash table built
+with scatters wins on the GPU is not measured):
 
 - previous-occurrence search: stable sort of (hash, pos, w0..w7) — the suffix's
   first 32 bytes ride through the sort, so depth-D chain candidates are the D
@@ -16,9 +16,9 @@ axis, with only small compaction scatters:
 - back to position order: a second sort keyed by position (cheaper than an
   N-element scatter).
 - greedy parse: matches are truncated at SEG-byte boundaries, making segments
-  independent; one lax.scan over the SEG axis (elementwise over B x N/SEG
-  lanes) reproduces the sequential greedy walk exactly. Literal coverage falls
-  out of the same scan.
+  independent; one walk over the SEG axis (a Pallas kernel on the GPU,
+  ops/pallas_greedy.py; a lax.scan elsewhere) reproduces the sequential
+  greedy walk exactly. Literal coverage falls out of the same walk.
 - sequence extraction / literal compaction: compaction-via-sort (key pushes
   non-selected rows to the end).
 - long matches: contiguous same-offset sequences merged with a segmented sum
@@ -34,6 +34,8 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from .. import platform
+
 I32 = jnp.int32
 U32 = jnp.uint32
 
@@ -43,12 +45,7 @@ SEG = 1 << SEG_LOG
 
 
 def _sort_unique(key: jax.Array, *pays: jax.Array) -> tuple[jax.Array, ...]:
-    """Ascending sort of 1-D ops by a UNIQUE key.
-
-    Measured on v5e (tools/psort_micro.py, 2026-08-20): XLA's generic sort
-    beats the Pallas bitonic kernel at every hot shape — (64x131072, 3 ops)
-    37 ms vs VMEM-OOM, (1024x8192, 9 ops) 39 vs 47 ms — so this routes to XLA
-    unconditionally; the kernel remains for narrow in-kernel use."""
+    """Ascending sort of 1-D ops by a UNIQUE key (XLA's sort)."""
     return jax.lax.sort((key, *pays), num_keys=1, is_stable=False)
 
 
@@ -106,7 +103,6 @@ def find_matches(
     cap: int,
     win_start: jax.Array | int = 0,
     mf_win_log: int = 0,
-    use_pallas_match: bool = False,
     sample_log: int = 0,
     two_band: bool = False,
     min_match: int = 4,
@@ -132,8 +128,7 @@ def find_matches(
     before it are padding and must never be referenced).
 
     mf_win_log > 0 restricts candidate SEARCH to 2^mf_win_log-byte windows:
-    the block reshapes to (nwin, W) and every sort runs along the short axis,
-    which is ~2.3x cheaper on v5e (tools/sort_micro.py "8K-windows" row).
+    the block reshapes to (nwin, W) and every sort runs along the short axis.
     Match CONTENT still extends past window ends (words are computed on the
     full block before reshaping); only the candidate set is window-local.
     """
@@ -145,32 +140,6 @@ def find_matches(
     words = [jnp.roll(w, -4 * k).astype(I32) for k in range(nwords)]
 
     windowed = 0 < mf_win_log < max(1, (N - 1).bit_length()) and N % (1 << mf_win_log) == 0
-    if (
-        windowed
-        and mf_win_log >= 10
-        and hash_log + 1 + mf_win_log <= 31  # key = hash<<plog|pos fits i32
-        and use_pallas_match
-        and jax.default_backend() == "tpu"
-    ):
-        # Fused Pallas path: hash-sort + depth compares + position-restore
-        # sort in ONE kernel per window (ops/pallas_match.py). Off by default:
-        # measured 141 ms vs the XLA 3-dispatch path's ~75 ms at 64x128KB
-        # (the bitonic network is VPU-bound above what XLA's sort achieves;
-        # fusing away HBM trips doesn't recover the gap).
-        from .pallas_match import match_windows
-
-        W = 1 << mf_win_log
-        sentinel = 1 << hash_log
-        shape2 = (N // W, W)
-        lpos = jnp.broadcast_to(jnp.arange(W, dtype=I32), shape2)
-        hw = jnp.where(live, h, sentinel).reshape(shape2)
-        key = (hw << mf_win_log) | lpos
-        wws = [x.reshape(shape2) for x in words]
-        best_ml, best_off = match_windows(key, wws, depth, sentinel)
-        best_ml = best_ml.reshape(-1)
-        best_off = best_off.reshape(-1)
-        best_ml = jnp.minimum(best_ml, jnp.maximum(n - pos, 0))
-        return best_ml, best_off
     SS = 1 << sample_log if (sample_log > 0 and windowed) else 1
     pb = None
     if windowed:
@@ -221,8 +190,7 @@ def find_matches(
     spb = sorted_ops[-1] if pb is not None else None
 
     # Select-based edge fill: .at[:, :d].set(fill) lowers to dynamic-update-
-    # slices that XLA fused into a 21M-cycle kLoop at 64x128KB (15 ms, the
-    # single hottest parse op); iota-compare + where fuses elementwise.
+    # slices; iota-compare + where fuses elementwise.
     edge_idx = jax.lax.broadcasted_iota(I32, shape, len(shape) - 1)
 
     def _prev(x, d, fill):
@@ -272,8 +240,7 @@ def find_matches(
     # Return to position order by sorting on position. In windowed mode the
     # whole row — sp | ext | ml | off — packs into ONE 31-bit sort key (sp in
     # the top bits, so ordering is unchanged), removing the payload operand
-    # from the restore sort entirely; sort cost is ~linear in operand count
-    # on v5e (tools/sort_micro.py). Fallback: packed payload beside the key.
+    # from the restore sort entirely. Fallback: packed payload beside the key.
     mlb = max(4, cap.bit_length())  # ml field width
     eb = 1 if best_ext is not None else 0
     low_bits = mf_win_log + mlb + eb if windowed else 99
@@ -361,7 +328,7 @@ def find_matches_long(
 ) -> tuple[jax.Array, jax.Array]:
     """Sampled whole-block long-range match candidates (LDM).
 
-    TPU-native counterpart of the reference's long-distance matcher
+    Counterpart of the reference's long-distance matcher
     (reference src/ldm_implementation.cu:67-170, include/cuda_zstd_ldm.h:
     rolling-hash table over a large window, min-match 64): positions are
     SAMPLED every 2^sample_log bytes and hashed over 8 bytes, so the sort
@@ -452,55 +419,97 @@ def find_matches_long(
     return full_ml, full_off
 
 
-def greedy_parse(
-    step: jax.Array, matched: jax.Array, defer: jax.Array | None = None, seg: int = SEG
-) -> tuple[jax.Array, jax.Array]:
-    """Exact greedy (optionally 1-step lazy) parse via one scan over
-    segment-local position index.
+def greedy_scan(packed: jax.Array) -> jax.Array:
+    """Greedy walk over (S, seg) packed segments as one lax.scan: the plain
+    reference for ops/pallas_greedy.py and the CPU path.
 
-    step[i]: parse advance at i (match length if taken, else 1), already
-    truncated so i + step[i] never crosses a `seg` boundary (the scan length
-    is `seg` — smaller segments parse faster; truncated long matches are
-    re-joined by the same-offset merge pass, costing ~0.2% ratio at 512).
-    defer[i]: lazy hint — True when position i+1 has a strictly better match,
-    so the parse emits a literal at i instead (reference lazy strategy,
-    src/lz77_parallel.cu / host format/lz77.py lazy=1).
-    Returns (is_seq (N,), is_lit (N,)) in position order.
+    packed: step | matched << 16 | defer << 17 per position.
+    Returns (S, seg) uint8 of take | is_lit << 1.
     """
-    N = step.shape[0]
-    nseg = N // seg
-    if seg <= 1024 and jax.default_backend() == "tpu":
-        # Pallas kernel: the whole sequential walk inside VMEM (~15x cheaper
-        # than the lax.scan below — its per-iteration work is a few vregs, so
-        # XLA loop overhead dominates; see ops/pallas_greedy.py).
-        from .pallas_greedy import greedy_segments
-
-        d = jnp.zeros_like(step) if defer is None else defer.astype(I32)
-        packed = (step | (matched.astype(I32) << 11) | (d << 12)).reshape(nseg, seg)
-        out = greedy_segments(packed).reshape(-1)
-        return (out & 1) == 1, (out & 2) == 2
-    st = step.reshape(nseg, seg).T          # (seg, nseg)
-    mt = matched.reshape(nseg, seg).T
-    if defer is None:
-        df = jnp.zeros((seg, nseg), bool)
-    else:
-        df = defer.reshape(nseg, seg).T
+    S, seg = packed.shape
+    x_t = packed.T  # (seg, S)
 
     def body(carry, xs):
         na, me = carry                       # next-allowed, match-end (per segment)
-        p, (stp, m, d) = xs
+        p, x = xs
+        stp = x & 0xFFFF
+        m = ((x >> 16) & 1) == 1
+        d = ((x >> 17) & 1) == 1
         is_pp = na == p
         take = is_pp & m & ~d
         adv = jnp.where(take, stp, 1)
         new_me = jnp.where(take, p + stp, me)
         new_na = jnp.where(is_pp, p + adv, na)
         is_lit = p >= new_me
-        return (new_na, new_me), (take, is_lit)
+        out = take.astype(I32) + jnp.where(is_lit, 2, 0)
+        return (new_na, new_me), out.astype(jnp.uint8)
 
     p_idx = jnp.arange(seg, dtype=I32)
-    init = (jnp.zeros(nseg, I32), jnp.zeros(nseg, I32))
-    _, (is_seq_t, is_lit_t) = jax.lax.scan(body, init, (p_idx, (st, mt, df)))
-    return is_seq_t.T.reshape(-1), is_lit_t.T.reshape(-1)
+    init = (jnp.zeros(S, I32), jnp.zeros(S, I32))
+    _, out_t = jax.lax.scan(body, init, (p_idx, x_t))
+    return out_t.T
+
+
+def greedy_parse(
+    step: jax.Array, matched: jax.Array, defer: jax.Array | None = None, seg: int = SEG
+) -> tuple[jax.Array, jax.Array]:
+    """Exact greedy (optionally 1-step lazy) parse via one walk over
+    segment-local position index.
+
+    step[i]: parse advance at i (match length if taken, else 1), already
+    truncated so i + step[i] never crosses a `seg` boundary (the walk length
+    is `seg`; truncated long matches are re-joined by the same-offset merge
+    pass). defer[i]: lazy hint — True when position i+1 has a strictly better
+    match, so the parse emits a literal at i instead (reference lazy
+    strategy, src/lz77_parallel.cu / host format/lz77.py lazy=1).
+    Returns (is_seq (N,), is_lit (N,)) in position order.
+    """
+    from .pallas_greedy import UNROLL, greedy_walk
+
+    N = step.shape[0]
+    d = jnp.zeros_like(step) if defer is None else defer.astype(I32)
+    packed = (step | (matched.astype(I32) << 16) | (d << 17)).reshape(N // seg, seg)
+    if platform.use_gpu_kernels() and seg % UNROLL == 0:
+        out = greedy_walk(packed)
+    else:
+        out = greedy_scan(packed)
+    out = out.reshape(-1)
+    return (out & 1) == 1, (out & 2) == 2
+
+
+def _concat_rows(rows, first, counts, out_len: int):
+    """Concatenate rows[w, first[w] : first[w] + counts[w]] over windows w
+    into one zero-padded (out_len,) vector with a single gather.
+
+    Output position k belongs to the last window whose exclusive start
+    offset is <= k (found by a scatter of window starts and a prefix sum:
+    empty windows share their successor's start and drop out)."""
+    from .scanops import cumsum_i32
+
+    nwin, W = rows.shape
+    start = jnp.cumsum(counts) - counts
+    total = start[-1] + counts[-1]
+    mark = jnp.zeros((out_len,), I32).at[start].add(1, mode="drop")
+    widx = jnp.clip(cumsum_i32(mark) - 1, 0, nwin - 1)
+    k = jnp.arange(out_len, dtype=I32)
+    src = widx * W + jnp.take(first, widx) + k - jnp.take(start, widx)
+    vals = jnp.take(rows.reshape(-1), jnp.clip(src, 0, nwin * W - 1))
+    return jnp.where(k < total, vals, 0)
+
+
+def _concat_windows(e_key_w, e_pk_w, nseq_w, nlit_w, max_seqs: int):
+    """Per-window compaction-sort output -> block-wide (lits, starts, pk).
+
+    Each sorted window row holds its sequence rows at [0, nseq_w) (key =
+    window-local start, payload ml << 21 | off) and its literal bytes at
+    [nseq_w, nseq_w + nlit_w)."""
+    nwin, W = e_key_w.shape
+    base = (jnp.arange(nwin, dtype=I32) * W)[:, None]
+    zero_w = jnp.zeros((nwin,), I32)
+    lits = _concat_rows(e_pk_w & 0xFF, nseq_w, nlit_w, nwin * W).astype(jnp.uint8)
+    starts = _concat_rows(e_key_w + base, zero_w, nseq_w, max_seqs)
+    pk = _concat_rows(e_pk_w, zero_w, nseq_w, max_seqs)
+    return lits, starts, pk
 
 
 def parse_block(
@@ -593,7 +602,7 @@ def parse_block(
     defer = None
     if optimal:
         # BTOPT-style exact segment DP over the candidate set (levels 16-22,
-        # ops/pallas_opt.py): replaces the greedy/lazy/of_gate heuristics with
+        # ops/optimal_parse.py): replaces the greedy/lazy/of_gate heuristics with
         # a bit-cost minimization; the walk then executes its choices
         # (a chosen step < ml_t deliberately shortens the match).
         #
@@ -607,7 +616,7 @@ def parse_block(
         # matching are not distributed like the block average — which is why
         # the histograms come from the pass-1 PARSE, not the raw block.)
         from .fse_jax import highbit32_jnp, ml_code_jnp
-        from .pallas_opt import SCALE, opt_steps
+        from .optimal_parse import SCALE, opt_steps
 
         ofc = highbit32_jnp(jnp.maximum(boff + 3, 1))
         mlv = jnp.where(matched, jnp.minimum(ml_t, 127), 0)
@@ -749,18 +758,10 @@ def parse_block(
     ) else 0
     if ew_log:
         # Windowed extraction: the compaction-sort runs along the SAME short
-        # 2^mf_win_log axis as the match-finder sorts (~2.3x cheaper per row
-        # than the full-block axis on v5e), then the per-window sequence
-        # segments and literal runs concatenate with one Pallas rotate each
-        # (ops/pallas_roll.py) at cumsum offsets — 3*nwin cheap passes
-        # replacing the most expensive sort axis in the parse stage.
-        from .bitpack import dynroll, place
-
+        # 2^ew_log axis as the match-finder sorts, then the per-window
+        # sequence rows and literal runs are concatenated (_concat_windows).
         W = 1 << ew_log
         nwin = N // W
-        # Seq starts per window cap (starts are >= min_match apart), rounded
-        # to 128 lanes for the Pallas concat.
-        SC = min(-(-(-(-W // max(min_match, 1)) // 128)) * 128, W)
         lpos = jax.lax.broadcasted_iota(I32, (nwin, W), 1)
         isq = is_seq.reshape(nwin, W)
         isl = is_lit.reshape(nwin, W)
@@ -770,47 +771,9 @@ def parse_block(
         )
         nseq_w = jnp.sum(isq.astype(I32), axis=1)
         nlit_w = jnp.sum(isl.astype(I32), axis=1)
-        S_w = jnp.cumsum(nseq_w) - nseq_w  # exclusive prefix sums
-        L_w = jnp.cumsum(nlit_w) - nlit_w
-        nseq_pre = S_w[-1] + nseq_w[-1]
-        zero_w = jnp.zeros((nwin,), I32)
-        # Per-window segment concat: seq rows sit at [0, nseq_w), literal
-        # bytes at [nseq_w, nseq_w + nlit_w) of each sorted window row.
-        startsw = e_key_w[:, :SC] + (jnp.arange(nwin, dtype=I32) << ew_log)[:, None]
-        pkw = e_pk_w[:, :SC]
-        if (
-            jax.default_backend() == "tpu"
-            and N % 128 == 0
-            and max_seqs % 128 == 0
-            and SC % 128 == 0
-        ):
-            # One Pallas pass per array (ops/pallas_concat.py) instead of
-            # nwin full-width rotates each.
-            from .pallas_concat import concat_varlen
-
-            lits = concat_varlen(e_pk_w & 0xFF, nseq_w, nlit_w, N).astype(jnp.uint8)
-            starts = concat_varlen(startsw, zero_w, nseq_w, max_seqs)
-            pk_acc = concat_varlen(pkw, zero_w, nseq_w, max_seqs)
-        else:
-            lit_rows = jnp.where(
-                (lpos >= nseq_w[:, None]) & (lpos < (nseq_w + nlit_w)[:, None]),
-                e_pk_w & 0xFF,
-                0,
-            )
-            lits_acc = jnp.zeros((N,), I32)
-            zpadw = jnp.zeros((N - W,), I32)
-            for w in range(nwin):
-                row = jnp.concatenate([lit_rows[w], zpadw])
-                lits_acc = lits_acc + dynroll(row, (L_w[w] - nseq_w[w]) % N, N)
-            lits = lits_acc.astype(jnp.uint8)
-            starts_acc = jnp.zeros((max_seqs,), I32)
-            pk_acc = jnp.zeros((max_seqs,), I32)
-            for w in range(nwin):
-                starts_acc = starts_acc + place(
-                    startsw[w], nseq_w[w], S_w[w], max_seqs, max_seqs
-                )
-                pk_acc = pk_acc + place(pkw[w], nseq_w[w], S_w[w], max_seqs, max_seqs)
-            starts = starts_acc
+        lits, starts, pk_acc = _concat_windows(
+            e_key_w, e_pk_w, nseq_w, nlit_w, max_seqs
+        )
         mls = pk_acc >> 21
         offs = pk_acc & ((1 << 21) - 1)
     else:
@@ -879,14 +842,9 @@ def parse_block(
     packed_rep = jnp.where(
         valid2, off2 | ((ll2 > 0).astype(I32) << 21) | (1 << 22), 0
     )
-    if jax.default_backend() == "tpu":
-        from .pallas_rep import rep_codes
+    from .pallas_rep import rep_codes
 
-        ob = rep_codes(packed_rep[None])[0]
-    else:
-        from .pallas_rep import rep_codes_scan
-
-        ob = rep_codes_scan(packed_rep)
+    ob = rep_codes(packed_rep)
 
     if min_match < 4:
         nseq2 = jnp.where(overflow, 0, nseq2)

@@ -1,4 +1,4 @@
-"""Exact repeat-offset (repcode) assignment as a Pallas TPU kernel.
+"""Exact repeat-offset (repcode) assignment: a Pallas kernel (Triton route).
 
 RFC 8878 offset-base values may name one of three rolling repeat offsets
 instead of spelling the offset (format/sequences.py encode_offset is the
@@ -7,16 +7,21 @@ host-side rule; the reference resolves them at sequence.cu:209
 1-2 offset bits instead of ~log2(offset), but the history is a sequential
 3-entry move-to-front state — one step per sequence.
 
-This kernel walks each block's sequence list in VMEM (blocks ride lanes, the
-step loop is a fori over sequence rows, like ops/pallas_greedy.py). Blocks
-are compressed independently while repcode history persists across blocks in
-a frame (RFC §3.1.1.5), so the initial history is UNKNOWN: each entry carries
-a known-flag and matches are only taken against entries whose value was
-established inside the block. The decoder's history VALUES evolve identically
-either way, so emitted frames stay stock-libzstd-decodable.
+Blocks are compressed independently while repcode history persists across
+blocks in a frame (RFC §3.1.1.5), so the initial history is UNKNOWN: each
+entry carries a known-flag and matches are only taken against entries whose
+value was established inside the block. The decoder's history VALUES evolve
+identically either way, so emitted frames stay stock-libzstd-decodable.
 
 Input per sequence row, packed i32:  off | has_lit << 21 | valid << 22
+(invalid rows are no-ops; in the pipeline the valid rows form a prefix).
 Output: offset-base value (1..3 or off + 3), 0 on invalid rows.
+
+`rep_codes_scan` is the plain reference (and the CPU path). The kernel walks
+the same steps with one program per tile of BS blocks: the sequence lists
+are laid out (rows, blocks) so each step loads BS contiguous words, the six
+state words stay in registers, and the loop stops after the tile's last
+valid row.
 """
 
 from __future__ import annotations
@@ -26,13 +31,15 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from .. import platform
 
 I32 = jnp.int32
-LANES = 128
-GB = 8
 
 M21 = (1 << 21) - 1
+BS = 32      # blocks per program (one warp, one block per thread)
+UNROLL = 8   # rows per loop trip: their loads do not depend on the state
 
 
 def _rep_step(x, state):
@@ -59,7 +66,6 @@ def _rep_step(x, state):
     #   swap01  [v1, v0, v2] : entry-1 hit (either ll case)
     #   rot2    [v2, v0, v1] : entry-2 hit (either ll case)
     #   push    [off, v0, v1]: new offset, and the ll==0 off==v0-1 repcode
-    # (pure i1 algebra — Mosaic rejects select over bool vectors)
     unchanged = ll & h0
     swap = (ll & ~h0 & h1) | (~ll & h1)
     rot = (ll & ~h0 & ~h1 & h2) | (~ll & ~h1 & h2)
@@ -79,82 +85,6 @@ def _rep_step(x, state):
     return ob, new_state
 
 
-RC = 512  # row chunk: rows stream through VMEM, history in scratch
-# (in + out double-buffered: 4 * RC * GB * 128 * 4 B = 8 MB, under the 16 MB
-# scoped-vmem limit; RC=1024 measured 16.02 MB — just over.)
-
-
-def _make_kernel(rc: int):
-    def kernel(in_ref, out_ref, st_ref):
-        @pl.when(pl.program_id(1) == 0)
-        def _():
-            st_ref[...] = jnp.zeros_like(st_ref)
-
-        state = tuple(st_ref[i] for i in range(6))
-
-        def step(t, state):
-            ob, new_state = _rep_step(in_ref[t], state)
-            out_ref[t] = ob
-            return new_state
-
-        state = jax.lax.fori_loop(0, rc, step, state)
-        for i, s in enumerate(state):
-            st_ref[i] = s
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(1,))
-def _rep_impl(packed_t: jax.Array, interpret: bool):
-    rows0, S = packed_t.shape
-    cells = S // (GB * LANES)
-    rc = min(RC, rows0)
-    rows = rows0
-    if rows % rc:  # pad to a whole row chunk; pad rows carry valid=0 no-ops
-        pad = rc - rows % rc
-        packed_t = jnp.concatenate(
-            [packed_t, jnp.zeros((pad, S), I32)], axis=0
-        )
-        rows += pad
-    spec = pl.BlockSpec(
-        (rc, GB, LANES), lambda c, r: (r, c, 0), memory_space=pltpu.VMEM
-    )
-    # Grid iterates the LAST dim fastest: row chunks run sequentially per
-    # lane cell, with the 3-entry history (+ known flags) carried in scratch.
-    out = pl.pallas_call(
-        _make_kernel(rc),
-        out_shape=jax.ShapeDtypeStruct((rows, cells * GB, LANES), I32),
-        grid=(cells, rows // rc),
-        in_specs=[spec],
-        out_specs=spec,
-        scratch_shapes=[pltpu.VMEM((6, GB, LANES), I32)],
-        interpret=interpret,
-    )(packed_t.reshape(rows, cells * GB, LANES))
-    return out.reshape(rows, S)[:rows0]
-
-
-@jax.custom_batching.custom_vmap
-def rep_codes(packed: jax.Array) -> jax.Array:
-    """Offset-base values for (S, rows) packed per-block sequence lists.
-    vmap collapses batch axes into S."""
-    S, rows = packed.shape
-    TILE = GB * LANES
-    pad = (-S) % TILE
-    if pad:
-        packed = jnp.concatenate([packed, jnp.zeros((pad, rows), I32)], axis=0)
-    interpret = jax.default_backend() != "tpu"
-    out = _rep_impl(packed.T, interpret).T
-    return out[:S] if pad else out
-
-
-@rep_codes.def_vmap
-def _rep_codes_vmap(axis_size, in_batched, packed):
-    if not in_batched[0]:
-        packed = jnp.broadcast_to(packed, (axis_size,) + packed.shape)
-    B, S, rows = packed.shape
-    return rep_codes(packed.reshape(B * S, rows)).reshape(B, S, rows), True
-
-
 def rep_codes_scan(packed: jax.Array) -> jax.Array:
     """lax.scan reference implementation: packed (rows,) -> ob (rows,)."""
     z = jnp.zeros((), I32)
@@ -165,3 +95,70 @@ def rep_codes_scan(packed: jax.Array) -> jax.Array:
 
     _, obs = jax.lax.scan(step, (z, z, z, z, z, z), packed)
     return obs
+
+
+def _kernel(n_ref, x_ref, o_ref):
+    trips = (jnp.max(n_ref[...]) + UNROLL - 1) // UNROLL
+    z = jnp.zeros((BS,), I32)
+
+    def body(t, state):
+        for u in range(UNROLL):
+            r = t * UNROLL + u
+            ob, state = _rep_step(x_ref[r, :], state)
+            o_ref[r, :] = ob
+        return state
+
+    jax.lax.fori_loop(0, trips, body, (z,) * 6)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def rep_codes_blocks(packed: jax.Array, *, interpret: bool = False) -> jax.Array:
+    """Kernel path: (S, rows) per-block packed lists -> (S, rows) ob.
+
+    S and rows need not be multiples of the tile: padding rows and blocks
+    carry valid=0 and are cut off again. Rows the kernel never reaches (past
+    a block's last valid row) are masked to 0 here."""
+    S, rows = packed.shape
+    Sp = -(-S // BS) * BS
+    Rp = -(-rows // UNROLL) * UNROLL
+    x = jnp.pad(packed.astype(I32), ((0, Sp - S), (0, Rp - rows))).T  # (Rp, Sp)
+    row = jnp.arange(Rp, dtype=I32)[:, None]
+    nseq = jnp.max(jnp.where(((x >> 22) & 1) == 1, row + 1, 0), axis=0)  # last valid + 1
+    out = pl.pallas_call(
+        _kernel,
+        out_shape=jax.ShapeDtypeStruct((Rp, Sp), I32),
+        grid=(Sp // BS,),
+        in_specs=[
+            pl.BlockSpec((BS,), lambda i: (i,)),
+            pl.BlockSpec((Rp, BS), lambda i: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((Rp, BS), lambda i: (0, i)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="rep_codes",
+    )(nseq, x)
+    out = jnp.where(row < nseq[None, :], out, 0)
+    return out.T[:S, :rows]
+
+
+@jax.custom_batching.custom_vmap
+def _rep_codes_kernel(packed: jax.Array) -> jax.Array:
+    return rep_codes_blocks(packed[None])[0]
+
+
+@_rep_codes_kernel.def_vmap
+def _rep_codes_vmap(axis_size, in_batched, packed):
+    if not in_batched[0]:
+        packed = jnp.broadcast_to(packed, (axis_size,) + packed.shape)
+    lead = packed.shape[:-1]
+    out = rep_codes_blocks(packed.reshape(-1, packed.shape[-1]))
+    return out.reshape(lead + packed.shape[-1:]), True
+
+
+def rep_codes(packed: jax.Array) -> jax.Array:
+    """Offset-base values for one block's packed list (rows,). Under vmap
+    the kernel takes the whole batch in one call."""
+    if platform.use_gpu_kernels():
+        return _rep_codes_kernel(packed)
+    return rep_codes_scan(packed)

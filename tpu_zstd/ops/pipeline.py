@@ -1,8 +1,8 @@
-"""End-to-end TPU block compression pipeline + host frame assembly.
+"""End-to-end device block compression pipeline + host frame assembly.
 
 Counterpart of the reference's DefaultZstdManager::compress GPU path
 (reference src/cuda_zstd_manager.cu:1536-3192): Phase-1 LZ77 + greedy parse,
-Phase-2 literals/sequence encoding and block emission. The TPU design replaces
+Phase-2 literals/sequence encoding and block emission. This design replaces
 the multi-stream per-block loop with one jitted, vmapped function over a
 (blocks, block_size) batch; Raw/RLE/Compressed block selection happens inside
 the kernel with a gather-based assembly (no BlockBufferWriter staging).
@@ -23,7 +23,7 @@ import numpy as np
 from ..constants import BLOCK_COMPRESSED, BLOCK_RAW, BLOCK_RLE, BLOCK_SIZE_MAX
 from ..format.frame import write_frame_header
 from ..format.xxhash import content_checksum
-from .fse_jax import encode_sequences_auto, encode_sequences_predefined
+from .fse_jax import encode_sequences_predefined
 from .lz77_jax import parse_block
 
 I32 = jnp.int32
@@ -37,9 +37,7 @@ class PipelineConfig:
     block_size: int = BLOCK_SIZE_MAX
     hash_log: int = 17
     depth: int = 8
-    # Carried sort words = cap/4: a real cost (tools/sample_ab.py sweep) —
-    # 12 beats 32 by +37% throughput for -0.4% ratio at the L3 shape, and the
-    # round-5 re-sweep found 8 beats 12 on both axes (see api/config.py).
+    # Carried sort words = cap/4: every word is one more sort operand.
     cap: int = 8
     min_match: int = 4
     lazy: bool = True  # 1-step lazy parse (Strategy.LAZY and up)
@@ -50,20 +48,19 @@ class PipelineConfig:
     seg_log: int = 10  # greedy-parse segment log (scan length = 2^seg_log)
     ckpt_every: int = 0  # decoder-checkpoint stride (0 = no accel metadata)
     lit_ckpt_every: int = 1024  # literal decode-checkpoint stride (coarser:
-    # literals are ~10-40x more numerous than sequences; round-5 doubled it —
-    # the lit-lane decode is ~1% of the decode wall)
+    # literals are ~10-40x more numerous than sequences)
     # Offset-cost gate (ml-4/ml-5 max offset codes; 99 = off): short matches
     # at large offsets cost more bits than the literals they replace.
     of_gate: tuple = (8, 12)
     # Window-local candidate search (0 = whole block): sorts run along a
-    # 2^mf_win_log axis, ~2.3x cheaper on v5e for -0.8% ratio at 13
-    # (tools/win_sweep.py). Must be 0 in dictionary mode (the preloaded
-    # window prefix has to stay visible to every position).
+    # 2^mf_win_log axis (about -0.8% ratio at 13). Must be 0 in dictionary
+    # mode (the preloaded window prefix has to stay visible to every
+    # position).
     mf_win_log: int = 13
     # Sampled whole-block long-range pass (ops/lz77_jax.find_matches_long):
-    # recovers matches beyond the 2^mf_win_log candidate horizon at ~1/4 the
-    # windowed sort's cost (measured +12 ms per 64x128K batch on v5e; ratio-
-    # neutral on the mixed bench corpus, wins on long-range-redundant data).
+    # recovers matches beyond the 2^mf_win_log candidate horizon with a sort
+    # over a quarter of the rows (ratio-neutral on the mixed bench corpus,
+    # wins on long-range-redundant data).
     # Default off; ratio-focused levels (>= 7) enable it. No-op when
     # mf_win_log == 0 (full reach already).
     ldm: bool = False
@@ -78,9 +75,8 @@ class PipelineConfig:
     # shrink by the same factor. FAST levels only (costs ratio).
     sample_log: int = 0
     # Decode-tuned profile (accel/inference frames): suppress matches shorter
-    # than this so frames decode with FEWER, LONGER sequences — the device
-    # executor pays ~90-170 cycles PER SEQUENCE, so bytes/sequence is the
-    # decode-throughput lever (reference inference API counterpart:
+    # than this so frames decode with FEWER, LONGER sequences (reference
+    # inference API counterpart:
     # decompress_batch_preallocated, manager.h:193-273). 0 = off.
     dec_min_ml: int = 0
 
@@ -109,8 +105,7 @@ class PipelineConfig:
     def seq_cap_for(self, msb: int) -> int:
         """Sequence-section byte capacity for an nseq bucket of msb entries
         (same 40-bit/sequence bound as seq_cap; smaller buckets keep the
-        select-based section assembly proportionally narrow). 4096-aligned so
-        the deposit/placement rolls ride the Pallas rotate."""
+        select-based section assembly proportionally narrow). 4096-aligned."""
         return -(-((msb * 40) // 8 + 1024) // 4096) * 4096
 
 
@@ -250,8 +245,7 @@ def _assemble_one(
     from .bitpack import place
 
     # Raw literals section: header (1-3 bytes) then literals, composed with
-    # select-based placement (no scatters under vmap). Capacities 4096-aligned
-    # for the Pallas rotate.
+    # select-based placement (no scatters under vmap).
     zero = jnp.zeros((), I32)
     litcap = N + 4096
     litsec_raw = place(lh, lit_hdr_len, zero, litcap, 1) + place(
@@ -379,26 +373,9 @@ def _encode_stage(blocks, lengths, seqs, cfg: PipelineConfig, msb: int):
                 a[:msb], b[:msb], c[:msb], n, msb, o[:msb] if cfg.ckpt_every else None
             )
         )(seqs.ll, seqs.ml, seqs.ob, seqs.nseq, seqs.off)
-        if jax.default_backend() == "tpu" and msb % 128 == 0 and msb <= 32768:
-            # Batched Pallas state chains (ops/pallas_chain.py) outside the
-            # vmap; the per-block encode consumes them via `chains`.
-            from ..constants import SEQ_RLE
-            from .pallas_chain import state_chain3_pallas
-
-            ch = state_chain3_pallas(
-                prep["st3"], prep["dnb3"], prep["dfs3"], prep["init3"],
-                prep["tl3"], prep["mode3"] == SEQ_RLE, prep["rsym3"],
-                seqs.nseq, msb,
-            )
-            enc = jax.vmap(
-                lambda p, n, c0, c1, c2: encode_prepared(
-                    p, n, msb, cap, cfg.ckpt_every, chains=(c0, c1, c2)
-                )
-            )(prep, seqs.nseq, *ch)
-        else:
-            enc = jax.vmap(lambda p, n: encode_prepared(p, n, msb, cap, cfg.ckpt_every))(
-                prep, seqs.nseq
-            )
+        enc = jax.vmap(lambda p, n: encode_prepared(p, n, msb, cap, cfg.ckpt_every))(
+            prep, seqs.nseq
+        )
         if cfg.ckpt_every:
             seq_bytes, seq_len, ck_bits, ck_states, ck_r0 = enc
             ck = (ck_bits, ck_states, ck_r0)
@@ -424,8 +401,7 @@ def _encode_stage(blocks, lengths, seqs, cfg: PipelineConfig, msb: int):
 # Staged-path bucket ladder (finer than the in-graph lax.switch ladder: each
 # bucket compiles lazily on first use, so granularity costs nothing up front).
 # All entries are multiples of the state-chain CHUNK (64). The state chains +
-# deposit cost is ~linear in the bucket size, so a 20480 bucket saves ~37% of
-# the encode stage vs 32768 when max(nseq) lands just above 16384.
+# deposit work is ~linear in the bucket size.
 _BUCKETS = (2048, 4096, 8192, 12288, 16384, 20480, 21760, 24576, 28672)
 
 
@@ -434,12 +410,7 @@ def _pick_bucket(bmax: int, full: int) -> int:
 
 
 def _encode_grouped(blocks, lengths, seqs, nseq_host, cfg: PipelineConfig):
-    """Single-bucket encode at the smallest bucket covering max(nseq).
-
-    (An nseq-sorted multi-group variant was measured 1.8x SLOWER on v5e:
-    encode cost is dominated by per-block Huffman-literal work and per-graph
-    fixed costs, not by the nseq bucket — msb=2048 vs 32768 timed within 10%
-    at equal B — so splitting the batch only multiplies the fixed costs.)"""
+    """Single-bucket encode at the smallest bucket covering max(nseq)."""
     msb = _pick_bucket(int(nseq_host.max()), cfg.max_seqs)
     return _encode_stage(blocks, lengths, seqs, cfg, msb)
 
@@ -468,10 +439,7 @@ def compress_blocks_staged_many(batches, cfg: PipelineConfig):
         # Start the nseq device->host copy NOW: by the time this batch is
         # drained (one batch later) the transfer has landed, so the bucket
         # decision never blocks on the link round-trip.
-        try:
-            nseq_dev.copy_to_host_async()
-        except AttributeError:
-            pass
+        nseq_dev.copy_to_host_async()
         pending.append((jb, jl, (seqs, nseq_dev)))
         if len(pending) >= 2:
             results.append(_drain_one(pending, cfg))
@@ -506,9 +474,8 @@ def compress(
     data: bytes,
     cfg: PipelineConfig = DEFAULT_CONFIG,
     checksum: bool = False,
-    interpret: bool = False,
 ) -> bytes:
-    """Single-shot TPU compression of one buffer into one zstd frame."""
+    """Single-shot device compression of one buffer into one zstd frame."""
     if len(data) == 0:
         hdr = write_frame_header(0, checksum=checksum)
         out = hdr + (1).to_bytes(3, "little")  # empty raw last block

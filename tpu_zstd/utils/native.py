@@ -23,7 +23,7 @@ except ImportError:  # non-POSIX: fall back to thread-lock-only builds
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc")
 _SRC = os.path.join(_CSRC, "tpu_zstd_native.cpp")
 _SRC_ENGINE = os.path.join(_CSRC, "tpu_zstd_engine.cpp")
-_LIB = os.path.join(_CSRC, "build", "libtpu_zstd_native.so")
+_LIB = os.path.join(_CSRC, "build", "libtz_native.so")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

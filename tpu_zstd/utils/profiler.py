@@ -3,7 +3,7 @@
 Counterpart of the reference's PerformanceProfiler singleton
 (reference include/performance_profiler.h:66-108: start/stop named timers,
 per-stage recorders, DetailedPerformanceMetrics :17-61 with print/export).
-On TPU, device timing requires a sync, so scoped timers call
+Device work runs asynchronously, so scoped timers call
 jax.block_until_ready on provided arrays; jax.profiler traces can be layered
 on for kernel-level detail (reference documents nsys/ncu the same way,
 README.md:955-961).
